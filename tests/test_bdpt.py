@@ -18,11 +18,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from rgk_tpu.driver.render import RenderDriver
-from rgk_tpu.integrator.path import render_lanes
-from rgk_tpu.parallel.mesh import MeshContext
-from rgk_tpu.scene.camera import coords_from_direction, make_camera, pixel_rays
-from rgk_tpu.scene.config import build_scene, load_config
+from rgk.driver.render import RenderDriver
+from rgk.integrator.path import render_lanes
+from rgk.parallel.mesh import MeshContext
+from rgk.scene.camera import coords_from_direction, make_camera, pixel_rays
+from rgk.scene.config import build_scene, load_config
 
 
 def test_coords_from_direction_roundtrips_pixel_rays():
@@ -161,14 +161,14 @@ def test_bdpt_sharded_matches_single_device(tmp_path):
 
 
 def test_queued_bdpt_matches_per_sample_wavefront(tmp_path):
-    """The queued-regeneration BDPT tracer (the TPU fast path,
+    """The queued-regeneration BDPT tracer (the production path,
     integrator/path.trace_wavefront_queued_bdpt) must reproduce the
     per-sample wavefront's estimator exactly: sampling is a pure
     function of (seed, pixel, sample, dim), so eye radiance is
     bitwise-identical and the splat image agrees to scatter-order
     (1-ulp class) float noise."""
-    from rgk_tpu.integrator.path import (render_image_round,
-                                         trace_wavefront_queued_bdpt)
+    from rgk.integrator.path import (render_image_round,
+                                     trace_wavefront_queued_bdpt)
 
     cfg = load_config(_bdpt_cfg(tmp_path, reverse=3, res=16, ms=4))
     arrays, meta, _ = build_scene(cfg, build_bvh=False)

@@ -2,7 +2,7 @@
 orbit animation, resume (reference src/main.cpp:58-260,
 render_driver.cpp:227-248).
 
-Each test drives `rgk_tpu.driver.cli.main` in-process on the CPU
+Each test drives `rgk.driver.cli.main` in-process on the CPU
 backend with a tiny analytic scene, so the full argument plumbing,
 frame loop and file handling run for real.
 """
@@ -13,8 +13,8 @@ import os
 import numpy as np
 import pytest
 
-from rgk_tpu.driver import cli
-from rgk_tpu.io.exr import read_exr
+from rgk.driver import cli
+from rgk.io.exr import read_exr
 
 
 @pytest.fixture()

@@ -1,13 +1,13 @@
 """Debug-pixel tracer (reference -d X Y) and the LRU utility."""
 import numpy as np
 
-from rgk_tpu.integrator.debug import trace_pixel_debug
-from rgk_tpu.scene.config import build_scene, load_config
-from rgk_tpu.utils.lru import LRU
+from rgk.integrator.debug import trace_pixel_debug
+from rgk.scene.config import build_scene, load_config
+from rgk.utils.lru import LRU
 
 
-def test_debug_pixel_trace():
-    cfg = load_config("/root/reference/scenes/cornell-box.json")
+def test_debug_pixel_trace(cornell_json):
+    cfg = load_config(cornell_json)
     s = cfg.settings
     s.xres = s.yres = 64
     s.recursion_max = 6

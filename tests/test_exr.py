@@ -1,7 +1,7 @@
 import numpy as np
 import pytest
 
-from rgk_tpu.io import exr
+from rgk.io import exr
 
 
 @pytest.mark.parametrize("compression", ["none", "zips", "zip"])
@@ -40,8 +40,8 @@ def test_png_bmp_writers(tmp_path):
     # Reference FileTexture::Write (texture.cpp:109-187): PNG and
     # 24-bit bottom-up BGR BMP, 255*clamp per channel.
     import numpy as np
-    from rgk_tpu.io.texture_io import (load_texture, write_bmp, write_png,
-                                       write_texture)
+    from rgk.io.texture_io import (load_texture, write_bmp, write_png,
+                                   write_texture)
     rng = np.random.RandomState(3)
     img = rng.rand(21, 13, 3).astype(np.float32)  # odd width -> row pad
     # the writer truncates like the reference's (char)(255*clamp)

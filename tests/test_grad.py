@@ -13,8 +13,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from rgk_tpu.diff.params import apply_params, extract_params, make_loss_fn
-from rgk_tpu.scene.config import build_scene, load_config
+from rgk.diff.params import apply_params, extract_params, make_loss_fn
+from rgk.scene.config import build_scene, load_config
 
 
 @pytest.fixture(scope="module")
@@ -157,7 +157,7 @@ def nee_setup(tmp_path_factory):
 
 
 def _nee_render(arrays, meta, cfg, cam, px, py, si, params):
-    from rgk_tpu.integrator.path import render_lanes
+    from rgk.integrator.path import render_lanes
 
     s = apply_params(arrays, params)
     return np.asarray(render_lanes(
@@ -205,7 +205,7 @@ def texel_setup(tmp_path_factory):
     is detached), so central differences are exact up to fp32 noise —
     the bilinear-corner subtlety is in WHICH texels receive gradient,
     which we probe via the argmax texel of the analytic gradient."""
-    from rgk_tpu.io.texture_io import write_png
+    from rgk.io.texture_io import write_png
 
     tmp = tmp_path_factory.mktemp("texgrad")
     rng = np.random.RandomState(7)
@@ -288,19 +288,44 @@ def test_optimization_step_reduces_loss(grad_setup):
     assert l1 < float(l0)
 
 
+def _write_uv_sphere(path, n_lat, n_lon):
+    """Unit UV sphere as an OBJ with per-vertex normals:
+    2 * n_lon * (n_lat - 1) triangles."""
+    lat = np.linspace(0.0, np.pi, n_lat + 1)
+    lon = np.linspace(0.0, 2.0 * np.pi, n_lon, endpoint=False)
+    v = np.stack([np.sin(lat)[:, None] * np.cos(lon)[None, :],
+                  np.cos(lat)[:, None] + 0.0 * lon[None, :],
+                  np.sin(lat)[:, None] * np.sin(lon)[None, :]],
+                 axis=-1).reshape(-1, 3)
+    faces = []
+    for i in range(n_lat):
+        for j in range(n_lon):
+            a, b = i * n_lon + j, i * n_lon + (j + 1) % n_lon
+            c, e = a + n_lon, b + n_lon
+            if i > 0:
+                faces.append((a, b, c))
+            if i < n_lat - 1:
+                faces.append((b, e, c))
+    with open(path, "w") as f:
+        for x in v:
+            f.write("v %.6f %.6f %.6f\n" % tuple(x))
+        for x in v:
+            f.write("vn %.6f %.6f %.6f\n" % tuple(x))
+        for a, b, c in faces:
+            f.write(f"f {a+1}//{a+1} {b+1}//{b+1} {c+1}//{c+1}\n")
+
+
 @pytest.fixture(scope="module")
 def mesh_bvh_setup(tmp_path_factory):
     """FD gradients with hits coming from TREE TRAVERSAL: a mesh
-    scene (the reference's meshes/sphere.obj, 1280 faces) committed
-    with build_bvh=True and a tiny bvh_threshold so intersect_bvh —
-    not the GEMM sweep — produces every hit.  Proves the designed
-    stop-gradient through Hit (integrator/path.py) end-to-end
-    (BASELINE "pixel-grad allclose" on a mesh config)."""
-    import os
-
-    mesh = "/root/reference/scenes/meshes/sphere.obj"
-    if not os.path.exists(mesh):
-        pytest.skip("reference sphere.obj not available")
+    scene (a 1216-face UV sphere OBJ) committed with build_bvh=True
+    and a tiny bvh_threshold so intersect_bvh — not the flat sweep —
+    produces every hit.  Proves the designed stop-gradient through Hit
+    (integrator/path.py) end-to-end (BASELINE "pixel-grad allclose" on
+    a mesh config)."""
+    d = tmp_path_factory.mktemp("gradmesh")
+    mesh = str(d / "sphere.obj")
+    _write_uv_sphere(mesh, n_lat=20, n_lon=32)
     cfg_d = {
         "output-file": "t.exr", "output-width": 8, "output-height": 8,
         "multisample": 4, "recursion-max": 2, "russian": -1.0,
@@ -322,7 +347,7 @@ def mesh_bvh_setup(tmp_path_factory):
         "lights": [{"position": [1.5, 2.5, 1.5], "color": [1, 1, 0.9],
                     "intensity": 3.0}],
     }
-    p = tmp_path_factory.mktemp("gradmesh") / "scene.json"
+    p = d / "scene.json"
     p.write_text(json.dumps(cfg_d))
     cfg = load_config(str(p))
     arrays, meta, _ = build_scene(cfg, build_bvh=True, bvh_threshold=8)
@@ -349,3 +374,32 @@ def test_grad_mesh_bvh_albedo(mesh_bvh_setup):
 def test_grad_mesh_bvh_light(mesh_bvh_setup):
     loss_fn, params = mesh_bvh_setup
     _fd_check(loss_fn, params, "light_intensity", 0, 1e-3, 0.03)
+
+
+@pytest.mark.parametrize("setup", ["grad_setup", "mesh_bvh_setup"])
+def test_grad_equal_with_dispatch(setup, request, monkeypatch):
+    """The platform dispatch of ops/intersect.make_intersector changes
+    no gradient: every parameter's gradient through a render equals
+    the one taken with the plain intersector called directly."""
+    from functools import partial
+
+    from rgk.ops import intersect as isect
+
+    loss_fn, params = request.getfixturevalue(setup)
+    g_dispatch = jax.grad(loss_fn)(params)
+
+    def plain_intersector(meta):
+        fn = isect.intersect_bvh if meta.has_bvh else isect.intersect_brute
+
+        def intersect(scene, ro, rd, t_min, t_max, exclude=None,
+                      any_hit=False):
+            return partial(fn, any_hit=any_hit)(
+                scene, jax.lax.stop_gradient(ro),
+                jax.lax.stop_gradient(rd), t_min, t_max, exclude)
+        return intersect
+
+    monkeypatch.setattr(isect, "make_intersector", plain_intersector)
+    g_plain = jax.grad(loss_fn)(params)
+    for key in params:
+        np.testing.assert_array_equal(np.asarray(g_dispatch[key]),
+                                      np.asarray(g_plain[key]), err_msg=key)

@@ -1,12 +1,14 @@
-"""BVH traversal correctness against the brute-force oracle."""
+"""Intersector correctness: BVH traversal against the brute-force
+oracle, and the GPU kernels against both."""
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
-from rgk_tpu.ops.intersect import intersect_brute, intersect_bvh
-from rgk_tpu.scene.arrays import BVHArrays, _f32, _i32
-from rgk_tpu.scene.builder import build_tri_pack
-from rgk_tpu.scene.bvh import build_bvh
+from rgk.driver.parity import compare_hits
+from rgk.ops.intersect import intersect_brute, intersect_bvh
+from rgk.scene.builder import build_tri_pack
+from rgk.scene.bvh import build_bvh
 
 
 class _MiniScene:
@@ -94,21 +96,20 @@ def test_t_window():
     assert int(intersect_brute(scene, ro, rd, 6.0, 10.0).tri[0]) == -1
 
 
-def test_render_brute_vs_bvh(reference_scenes):
+def test_render_brute_vs_bvh(cornell_json):
     """Cornell box must render identically via brute force and BVH."""
-    import numpy as np
-    from rgk_tpu.integrator.path import render_image_round
-    from rgk_tpu.scene.config import build_scene, load_config
+    from rgk.integrator.path import render_image_round
+    from rgk.scene.config import build_scene, load_config
 
-    cfg = load_config(f"{reference_scenes}/cornell-box.json")
-    cfg.settings.xres = cfg.settings.yres = 24
-    cfg.settings.multisample = 4
-    a_brute, meta_b, _ = build_scene(cfg, build_bvh=False)
-    cfg2 = load_config(f"{reference_scenes}/cornell-box.json")
-    cfg2.settings.xres = cfg2.settings.yres = 24
-    cfg2.settings.multisample = 4
-    a_bvh, meta_v, _ = build_scene(cfg2, build_bvh=True, bvh_threshold=8)
-    assert meta_v.has_bvh
+    def build(build_bvh, **kw):
+        cfg = load_config(cornell_json)
+        cfg.settings.xres = cfg.settings.yres = 24
+        cfg.settings.multisample = 4
+        return (cfg,) + build_scene(cfg, build_bvh=build_bvh, **kw)[:2]
+
+    cfg, a_brute, meta_b = build(False)
+    cfg2, a_bvh, meta_v = build(True, bvh_threshold=8)
+    assert meta_v.has_bvh and not meta_b.has_bvh
     cam = cfg.get_camera()
     r1, c1, _ = render_image_round(a_brute, meta_b, cfg.settings, cam, 0)
     r2, c2, _ = render_image_round(a_bvh, meta_v, cfg2.settings, cam, 0)
@@ -116,161 +117,108 @@ def test_render_brute_vs_bvh(reference_scenes):
                                rtol=1e-4, atol=1e-5)
 
 
-def test_pallas_flat_matches_brute_multi_tile():
-    """Interpret-mode run of the Pallas flat kernel vs the GEMM oracle
-    on a soup wider than one M_TILE (regression: the untiled sweep
-    OOMed VMEM beyond ~1k triangles)."""
+# ---- GPU kernels (ops/triton_intersect.py) against their oracles ----
+
+def _kernel_scene(n_tris=300, seed=3):
+    """Random soup with a thin-glass column; every 17th triangle is
+    glass, which no ray may hit."""
+    from rgk.scene.builder import append_thinglass_column
+
+    verts, tris = _random_soup(n_tris, seed=seed, spread=4.0)
+    scene = _MiniScene(verts, tris, build_bvh(verts, tris, leaf_size=4))
+    glass = np.arange(n_tris) % 17 == 0
+    scene.tri_pack = jnp.asarray(append_thinglass_column(
+        np.asarray(scene.tri_pack), np.arange(n_tris), glass))
+    return scene, glass
+
+
+# 1000 rays: not a multiple of the kernels' 128-ray block.
+@pytest.mark.parametrize("mode", ["closest", "exclude", "any_hit",
+                                  "t_window", "inactive"])
+@pytest.mark.parametrize("kernel,oracle", [
+    ("sweep", intersect_brute), ("traverse", intersect_bvh)])
+def test_kernel_matches_oracle(kernel, oracle, mode):
+    from rgk.ops import triton_intersect as tk
+
+    scene, glass = _kernel_scene()
+    ro, rd = _random_rays(1000, seed=4, spread=5.0)
+    rng = np.random.default_rng(9)
+    t_min, t_max, kw = 0.0, 1e4, {}
+    if mode == "exclude":
+        kw["exclude"] = oracle(scene, ro, rd, 0.0, 1e4).tri
+    elif mode == "any_hit":
+        t_min, t_max = 0.1, 20.0
+    elif mode == "t_window":
+        t_min = jnp.asarray(rng.uniform(0.0, 5.0, 1000), jnp.float32)
+        t_max = t_min + jnp.asarray(rng.uniform(0.5, 15.0, 1000),
+                                    jnp.float32)
+    elif mode == "inactive":
+        # visibility()'s culled lanes: an empty interval, no hit.
+        t_max = jnp.where(jnp.arange(1000) % 3 == 0, -1.0, 1e4)
+    want = oracle(scene, ro, rd, t_min, t_max, **kw)
+    got = getattr(tk, kernel)(scene, ro, rd, t_min, t_max,
+                              any_hit=(mode == "any_hit"),
+                              interpret=True, **kw)
+    hit = np.asarray(want.tri) >= 0
+    assert 0.05 < hit.mean() < 1.0, "scene should hit some rays, not all"
+    if mode == "any_hit":
+        np.testing.assert_array_equal(np.asarray(got.tri) >= 0, hit)
+        return
+    np.testing.assert_array_equal(np.asarray(got.tri), np.asarray(want.tri))
+    assert not glass[np.asarray(got.tri)[hit]].any()
+    if mode == "exclude":
+        e = np.asarray(kw["exclude"])
+        assert not np.any((np.asarray(got.tri) == e) & (e >= 0))
+    if mode == "inactive":
+        assert not hit[::3].any()
+    stats = compare_hits(got, want, scene.tri_pack, ro, rd, diameter=40.0)
+    assert stats["ok"], stats
+
+
+@pytest.mark.parametrize("has_bvh", [False, True])
+def test_dispatch_follows_lowering_platform(has_bvh):
+    """The plain intersector on CPU, the Triton kernel on CUDA, and a
+    lowering error on any other platform."""
     import jax
 
-    from rgk_tpu.ops.pallas_intersect import (M_TILE, intersect_pallas,
-                                              prepare_pack_mp)
+    from rgk.ops.intersect import make_intersector
+    from rgk.scene.arrays import SceneMeta
 
-    n_tris = M_TILE * 2 + 57  # forces multi-tile merging + a ragged tail
-    verts, tris = _random_soup(n_tris, seed=11)
-    scene = _MiniScene(verts, tris)
-    scene.pack_mp = jnp.asarray(prepare_pack_mp(np.asarray(scene.tri_pack)))
-    ro, rd = _random_rays(512, seed=12)
+    from collections import namedtuple
 
-    hb = intersect_brute(scene, ro, rd, 0.0, 1e4)
-    hp = intersect_pallas(scene, ro, rd, 0.0, 1e4, block=256,
-                          interpret=True)
-    np.testing.assert_array_equal(np.asarray(hb.tri), np.asarray(hp.tri))
-    hit = np.asarray(hb.tri) >= 0
-    assert hit.mean() > 0.05
-    np.testing.assert_allclose(np.asarray(hb.t)[hit], np.asarray(hp.t)[hit],
-                               rtol=3e-4, atol=1e-6)
-    # exclusion plumbs through the kernel
-    hp2 = intersect_pallas(scene, ro, rd, 0.0, 1e4, exclude=hb.tri,
-                           block=256, interpret=True)
-    e = np.asarray(hb.tri)
-    assert not np.any((np.asarray(hp2.tri) == e) & (e >= 0))
-
-
-def _cluster_scene(n_tris, seed):
-    from rgk_tpu.scene.clusters import build_clusters
-    verts, tris = _random_soup(n_tris, seed=seed)
-    scene = _MiniScene(verts, tris)
-    scene.clusters = build_clusters(verts, tris,
-                                    np.asarray(scene.tri_pack))
-    return scene
+    mini, _ = _kernel_scene(64)
+    # The dispatch passes the scene through lax.platform_dependent, so
+    # it must be a pytree, as SceneArrays is.
+    scene = namedtuple("Scene", "tri_pack bvh")(mini.tri_pack, mini.bvh)
+    meta = SceneMeta(n_triangles=64, n_materials=1, n_point_lights=0,
+                     n_areal_tris=0, has_bvh=has_bvh, has_textures=False,
+                     has_thinglass=True)
+    intersect = make_intersector(meta)
+    ro, rd = _random_rays(256)
+    traced = jax.jit(lambda ro, rd: intersect(
+        scene, ro, rd, 0.0, 1e4).t).trace(ro, rd)
+    cpu = traced.lower(lowering_platforms=("cpu",)).as_text()
+    cuda = traced.lower(lowering_platforms=("cuda",)).as_text()
+    assert "triton" not in cpu
+    assert "triton" in cuda
+    with pytest.raises(NotImplementedError):
+        traced.lower(lowering_platforms=("rocm",))
+    # On the CPU the dispatch computes exactly the oracle.
+    oracle = intersect_bvh if has_bvh else intersect_brute
+    np.testing.assert_array_equal(
+        np.asarray(intersect(scene, ro, rd, 0.0, 1e4).tri),
+        np.asarray(oracle(scene, ro, rd, 0.0, 1e4).tri))
 
 
-def test_cluster_kernel_matches_brute():
-    """Interpret-mode cluster-BVH kernel vs the GEMM oracle on a soup
-    spanning many clusters (closest hit, exclusion, any-hit)."""
-    from rgk_tpu.ops.pallas_cluster import intersect_clusters
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel,oracle", [
+    ("sweep", intersect_brute), ("traverse", intersect_bvh)])
+def test_kernel_compiled_on_gpu(kernel, oracle):
+    """The compiled kernel (no interpreter) against its oracle."""
+    from rgk.ops import triton_intersect as tk
 
-    scene = _cluster_scene(1000, seed=21)
-    ro, rd = _random_rays(512, seed=22)
-
-    hb = intersect_brute(scene, ro, rd, 0.0, 1e4)
-    hc = intersect_clusters(scene, ro, rd, 0.0, 1e4, block=256,
-                            interpret=True)
-    np.testing.assert_array_equal(np.asarray(hb.tri), np.asarray(hc.tri))
-    hit = np.asarray(hb.tri) >= 0
-    assert hit.mean() > 0.05
-    np.testing.assert_allclose(np.asarray(hb.t)[hit], np.asarray(hc.t)[hit],
-                               rtol=3e-4, atol=1e-6)
-    np.testing.assert_allclose(np.asarray(hb.bary_b)[hit],
-                               np.asarray(hc.bary_b)[hit], atol=1e-4)
-
-    # exclusion
-    hc2 = intersect_clusters(scene, ro, rd, 0.0, 1e4, exclude=hb.tri,
-                             block=256, interpret=True)
-    e = np.asarray(hb.tri)
-    assert not np.any((np.asarray(hc2.tri) == e) & (e >= 0))
-
-    # any-hit agrees on occlusion
-    hb3 = intersect_brute(scene, ro, rd, 0.1, 20.0)
-    hc3 = intersect_clusters(scene, ro, rd, 0.1, 20.0, any_hit=True,
-                             block=256, interpret=True)
-    np.testing.assert_array_equal(np.asarray(hb3.tri) >= 0,
-                                  np.asarray(hc3.tri) >= 0)
-
-
-def test_cluster_kernel_empty_interval_lanes():
-    """Lanes with an empty (t_min > t_max) interval — masked-off
-    visibility rays, padding — must report no hit and must not
-    disturb neighbouring lanes through the coherence sort."""
-    from rgk_tpu.ops.pallas_cluster import intersect_clusters
-
-    scene = _cluster_scene(1000, seed=31)
-    ro, rd = _random_rays(512, seed=32)
-
-    full = intersect_clusters(scene, ro, rd, 0.0, 1e4, block=256,
-                              interpret=True)
-    dead = np.arange(512) % 3 == 0
-    t_max = jnp.where(jnp.asarray(dead), -1.0, 1e4)
-    mixed = intersect_clusters(scene, ro, rd, 0.0, t_max, block=256,
-                               interpret=True)
-    assert not np.any(np.asarray(mixed.tri)[dead] >= 0)
-    live = ~dead
-    np.testing.assert_array_equal(np.asarray(full.tri)[live],
-                                  np.asarray(mixed.tri)[live])
-    hit = np.asarray(full.tri)[live] >= 0
-    np.testing.assert_allclose(np.asarray(full.t)[live][hit],
-                               np.asarray(mixed.t)[live][hit],
-                               rtol=1e-6)
-
-
-def test_binned_matches_union_kernel():
-    """The binned pipeline (walk-emit + dense chunk sweeps,
-    ops/pallas_binned.py) must agree with the union cluster kernel
-    exactly — same winner, same reported t/barycentrics — across cap
-    settings that exercise overflow + the pass-2 window."""
-    from rgk_tpu.ops.pallas_binned import intersect_clusters_binned
-    from rgk_tpu.ops.pallas_cluster import intersect_clusters
-
-    scene = _cluster_scene(1000, seed=21)
-    ro, rd = _random_rays(2048, seed=22)
-
-    hu = intersect_clusters(scene, ro, rd, 0.0, 1e4, block=256,
-                            interpret=True)
-    for K in (4, 8):  # K=4 overflows often -> pass 2 exercised
-        hb = intersect_clusters_binned(scene, ro, rd, 0.0, 1e4,
-                                       block=256, K=K, interpret=True)
-        np.testing.assert_array_equal(np.asarray(hu.tri),
-                                      np.asarray(hb.tri))
-        hit = np.asarray(hu.tri) >= 0
-        assert hit.mean() > 0.05
-        np.testing.assert_allclose(np.asarray(hu.t)[hit],
-                                   np.asarray(hb.t)[hit], rtol=1e-6)
-        np.testing.assert_allclose(np.asarray(hu.bary_b)[hit],
-                                   np.asarray(hb.bary_b)[hit],
-                                   atol=1e-5)
-
-
-def test_binned_exclusion_any_hit_and_windows():
-    from rgk_tpu.ops.pallas_binned import intersect_clusters_binned
-    from rgk_tpu.ops.pallas_cluster import intersect_clusters
-
-    scene = _cluster_scene(1000, seed=21)
-    ro, rd = _random_rays(1024, seed=23)
-    hu = intersect_clusters(scene, ro, rd, 0.0, 1e4, block=256,
-                            interpret=True)
-
-    # exclusion
-    hb = intersect_clusters_binned(scene, ro, rd, 0.0, 1e4,
-                                   exclude=hu.tri, block=256, K=4,
-                                   interpret=True)
-    e = np.asarray(hu.tri)
-    assert not np.any((np.asarray(hb.tri) == e) & (e >= 0))
-
-    # any-hit agrees on occlusion inside a finite window
-    hu2 = intersect_clusters(scene, ro, rd, 0.1, 20.0, any_hit=True,
-                             block=256, interpret=True)
-    hb2 = intersect_clusters_binned(scene, ro, rd, 0.1, 20.0,
-                                    any_hit=True, block=256, K=4,
-                                    interpret=True)
-    np.testing.assert_array_equal(np.asarray(hu2.tri) >= 0,
-                                  np.asarray(hb2.tri) >= 0)
-
-    # dead lanes (empty interval) report no hit, neighbours unchanged
-    dead = np.arange(1024) % 3 == 0
-    t_max = jnp.where(jnp.asarray(dead), -1.0, 1e4)
-    hb3 = intersect_clusters_binned(scene, ro, rd, 0.0, t_max,
-                                    block=256, K=4, interpret=True)
-    assert not np.any(np.asarray(hb3.tri)[dead] >= 0)
-    live = ~dead
-    np.testing.assert_array_equal(np.asarray(hu.tri)[live],
-                                  np.asarray(hb3.tri)[live])
+    scene, _ = _kernel_scene()
+    ro, rd = _random_rays(1000, seed=4)
+    want = oracle(scene, ro, rd, 0.0, 1e4)
+    got = getattr(tk, kernel)(scene, ro, rd, 0.0, 1e4)
+    np.testing.assert_array_equal(np.asarray(got.tri), np.asarray(want.tri))

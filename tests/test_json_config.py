@@ -1,8 +1,8 @@
 import numpy as np
 import pytest
 
-from rgk_tpu.scene.json_utils import ConfigError, Node, loads_tolerant
-from rgk_tpu.scene.config import load_config
+from rgk.scene.json_utils import ConfigError, Node, loads_tolerant
+from rgk.scene.config import load_config
 
 
 def test_strip_comments():
@@ -32,8 +32,8 @@ def test_typed_getters():
     assert n.find_unused() == ["unused"]
 
 
-def test_cornell_box_config(reference_scenes):
-    cfg = load_config(f"{reference_scenes}/cornell-box.json")
+def test_cornell_box_config(cornell_json):
+    cfg = load_config(cornell_json)
     s = cfg.settings
     assert (s.xres, s.yres) == (1024, 1024)
     assert s.multisample == 400
@@ -48,9 +48,9 @@ def test_cornell_box_config(reference_scenes):
     assert abs(xview - 2.0 * np.tan(np.radians(19.5) / 2.0)) < 1e-4
 
 
-def test_cornell_box_scene_build(reference_scenes):
-    from rgk_tpu.scene.config import build_scene
-    cfg = load_config(f"{reference_scenes}/cornell-box.json")
+def test_cornell_box_scene_build(cornell_json):
+    from rgk.scene.config import build_scene
+    cfg = load_config(cornell_json)
     arrays, meta, builder = build_scene(cfg, build_bvh=False)
     # 5 planes x 2 tris + 2 cubes x 12 tris + 2 light tris = 36
     assert meta.n_triangles == 36
@@ -93,7 +93,7 @@ def test_nested_mix_rejected(tmp_path):
     at config load, not silently evaluate to zero."""
     import json
 
-    from rgk_tpu.scene.config import build_scene
+    from rgk.scene.config import build_scene
 
     ok = tmp_path / "mix1.json"
     ok.write_text(json.dumps(_mix_cfg(nested=False)))

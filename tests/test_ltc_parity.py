@@ -21,7 +21,7 @@ import os
 import numpy as np
 import pytest
 
-from rgk_tpu.ops import ltc
+from rgk.ops import ltc
 
 GOLDEN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                           "goldens")

@@ -21,10 +21,10 @@ import sys
 import numpy as np
 import pytest
 
-from rgk_tpu.scene.json_utils import loads_tolerant
-
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SCENE = "/root/reference/scenes/cornell-box.json"
+sys.path.insert(0, REPO)
+
+from tools.cornell_scene import scene_dict  # noqa: E402
 
 
 def _free_port() -> int:
@@ -37,9 +37,7 @@ def _free_port() -> int:
 
 def _mini_scene(tmp_path, name: str) -> str:
     """A tiny-budget cornell box: 48x48, ms=2, 2 rounds, depth 3."""
-    if not os.path.exists(SCENE):
-        pytest.skip("reference scene corpus not available")
-    cfg = loads_tolerant(open(SCENE).read())
+    cfg = scene_dict()
     cfg["output-file"] = name + ".exr"
     cfg["output-width"] = 48
     cfg["output-height"] = 48
@@ -62,7 +60,7 @@ def _run_cli(scene, outdir, extra, timeout=600, devices_per_proc=1):
     procs = []
     for argv in extra:
         procs.append(subprocess.Popen(
-            [sys.executable, "-m", "rgk_tpu.driver.cli", scene,
+            [sys.executable, "-m", "rgk.driver.cli", scene,
              "--cpu", "-D", outdir, "-q"] + argv,
             cwd=REPO, env=env,
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
@@ -99,7 +97,7 @@ def test_two_process_render_matches_single(tmp_path):
          "--num-processes", "2", "--process-id", "1"],
     ])
 
-    from rgk_tpu.io.exr import read_exr
+    from rgk.io.exr import read_exr
     a = read_exr(os.path.join(single_dir, "mh-box.exr"))
     b = read_exr(os.path.join(multi_dir, "mh-box.exr"))
     # Bitwise process-count invariance (half precision in the file is
@@ -115,8 +113,8 @@ def test_two_process_render_matches_single(tmp_path):
 
 @pytest.mark.timeout(900)
 def test_two_process_multichip_matches_single(tmp_path):
-    """Multi-host x multi-chip composition — the actual 2-host v5e
-    topology of the BASELINE target: 2 processes x 4 virtual CPU
+    """Multi-host x multi-device composition — the 2-host topology of
+    the BASELINE target: 2 processes x 4 virtual CPU
     devices each, a MeshContext over each process's LOCAL devices
     (lanes sharded within a block), pixel blocks split across
     processes.  Each block runs the identical 4-device SPMD program in
@@ -145,7 +143,7 @@ def test_two_process_multichip_matches_single(tmp_path):
          "--process-id", "1"],
     ], devices_per_proc=4)
 
-    from rgk_tpu.io.exr import read_exr
+    from rgk.io.exr import read_exr
     a = read_exr(os.path.join(single_dir, "mh-mesh.exr"))
     b = read_exr(os.path.join(multi_dir, "mh-mesh.exr"))
     np.testing.assert_array_equal(np.asarray(a), np.asarray(b))

@@ -5,7 +5,7 @@ import time
 import numpy as np
 import pytest
 
-from rgk_tpu.scene.bvh import _build_numpy
+from rgk.scene.bvh import _build_numpy
 
 
 def _soup(n, seed=0):
@@ -22,7 +22,7 @@ def _soup(n, seed=0):
 
 @pytest.fixture(scope="module")
 def native():
-    from rgk_tpu.native.bvh_native import build_binned_sah, _load
+    from rgk.native.bvh_native import build_binned_sah, _load
     if _load() is None:
         pytest.skip("no C++ compiler for native BVH")
     return build_binned_sah
@@ -58,9 +58,9 @@ def test_native_traversal_equivalence(native):
     """Device traversal over the native-built tree matches brute."""
     import jax.numpy as jnp
 
-    from rgk_tpu.ops.intersect import intersect_brute, intersect_bvh
-    from rgk_tpu.scene.arrays import BVHArrays, _f32, _i32
-    from rgk_tpu.scene.builder import build_tri_pack
+    from rgk.ops.intersect import intersect_brute, intersect_bvh
+    from rgk.scene.arrays import BVHArrays, _f32, _i32
+    from rgk.scene.builder import build_tri_pack
 
     cen, pmin, pmax = _soup(800, seed=2)
     rng = np.random.default_rng(3)
@@ -109,38 +109,29 @@ def test_native_speed(native):
     assert t_native < t_numpy, (t_native, t_numpy)
 
 
-def test_octant_links_are_complete_dfs():
-    """Each octant's (hit, miss) link table must encode a full DFS of
-    the cluster tree: starting at the root and always descending on
-    inner nodes, every node is visited exactly once and the walk ends
-    at the sentinel n_nodes (scene/clusters.build_octant_links)."""
+def test_skip_links_are_complete_dfs():
+    """The skip links the traversals walk (ops/intersect.py,
+    ops/triton_intersect.py) must encode a full DFS: starting at the
+    root and always descending on inner nodes, every node is visited
+    exactly once, in index order, and the walk ends at the sentinel
+    n_nodes."""
     import numpy as np
 
-    from rgk_tpu.scene.bvh import _build_numpy
-    from rgk_tpu.scene.clusters import build_octant_links
+    from rgk.scene.bvh import _build_numpy
 
     rng = np.random.RandomState(3)
     c = rng.uniform(-1, 1, (300, 3)).astype(np.float32)
-    pmin = c - 0.01
-    pmax = c + 0.01
     node_min, node_max, first, count, skip, _ = _build_numpy(
-        c, pmin, pmax, 1)
+        c, c - 0.01, c + 0.01, 1)
     n = len(count)
-    links = build_octant_links(first, count, skip, node_min, node_max)
-    assert links.shape == (8, n)
     inner = np.asarray(count) == 0
-    for o in range(8):
-        hit = links[o] >> 16
-        miss = links[o] & 0xFFFF
-        # Full DFS: inner -> hit (near child), leaf -> miss.
-        visited = []
-        node = 0
-        while node < n:
-            visited.append(node)
-            node = hit[node] if inner[node] else miss[node]
-            assert len(visited) <= n
-        assert sorted(visited) == list(range(n)), f"octant {o}"
-        # Leaves keep their canonical cluster ids in every octant.
-        leaf = ~inner
-        np.testing.assert_array_equal(hit[leaf],
-                                      np.asarray(first)[leaf])
+    visited = []
+    node = 0
+    while node < n:
+        visited.append(node)
+        node = first[node] if inner[node] else skip[node]
+        assert len(visited) <= n
+    assert visited == list(range(n))
+    # A culled subtree resumes exactly after its last node.
+    for i in np.nonzero(inner)[0]:
+        assert skip[i] > first[i] > i

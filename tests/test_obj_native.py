@@ -3,7 +3,7 @@ single-process degenerate behavior."""
 import numpy as np
 import pytest
 
-from rgk_tpu.io.obj import load_obj
+from rgk.io.obj import load_obj
 
 OBJ = """
 mtllib t.mtl
@@ -70,7 +70,7 @@ def test_native_negative_and_missing_indices(obj_path):
 
 
 def test_multihost_single_process():
-    from rgk_tpu.parallel import multihost as mh
+    from rgk.parallel import multihost as mh
     mh.initialize()  # no-op
     assert mh.process_count() == 1
     assert mh.process_index() == 0

@@ -5,18 +5,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from rgk_tpu.integrator.path import render_lanes
-from rgk_tpu.parallel.mesh import MeshContext
-from rgk_tpu.scene.config import build_scene, load_config
+from rgk.integrator.path import render_lanes
+from rgk.parallel.mesh import MeshContext
+from rgk.scene.config import build_scene, load_config
 
 
 @pytest.fixture(scope="module")
-def small_scene(request):
-    import os
-    scenes = "/root/reference/scenes"
-    if not os.path.isdir(scenes):
-        pytest.skip("reference scene corpus not available")
-    cfg = load_config(f"{scenes}/cornell-box.json")
+def small_scene(cornell_json):
+    cfg = load_config(cornell_json)
     cfg.settings.xres = cfg.settings.yres = 16
     cfg.settings.multisample = 2
     cfg.settings.recursion_max = 4
@@ -90,7 +86,7 @@ def test_queued_tracer_under_mesh(small_scene):
     This is the wavefront path every multi-chip large-scene render
     takes (driver/render.py no longer falls back to the per-sample
     wavefront when a mesh is present)."""
-    from rgk_tpu.driver.render import RenderDriver
+    from rgk.driver.render import RenderDriver
 
     cfg, arrays, meta, cam = small_scene
     s = cfg.settings
@@ -111,3 +107,23 @@ def test_queued_tracer_under_mesh(small_scene):
     np.testing.assert_allclose(d1.acc.sum, d8.acc.sum,
                                rtol=1e-4, atol=1e-5)
     assert d1.stats.rays == d8.stats.rays
+
+
+def test_queued_tracer_under_mesh_bvh(small_scene):
+    """The same on the BVH path: the traversal's loop carry must vary
+    over the mesh axis like the rays it traces (a replicated initial
+    carry is a shard_map type error)."""
+    from rgk.driver.render import RenderDriver
+
+    cfg, _, _, cam = small_scene
+    s = cfg.settings
+    arrays, meta, _ = build_scene(cfg, build_bvh=True, bvh_threshold=8)
+    assert meta.has_bvh
+    sums = []
+    for mesh in (None, MeshContext(4)):
+        d = RenderDriver(s, arrays, meta, cam, chunk_lanes=1 << 10,
+                         mesh=mesh)
+        d.render_round(0)
+        d.fetch_accumulation()
+        sums.append(d.acc.sum)
+    np.testing.assert_allclose(sums[0], sums[1], rtol=1e-4, atol=1e-5)

@@ -10,8 +10,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from rgk_tpu.integrator.path import render_image_round, render_lanes
-from rgk_tpu.scene.config import build_scene, load_config
+from rgk.integrator.path import render_image_round, render_lanes
+from rgk.scene.config import build_scene, load_config
 
 
 def _write_cfg(tmp_path, cfg):
@@ -148,8 +148,8 @@ def test_russian_roulette_reference_parity(tmp_path):
     assert abs(ratio - p) < 0.08, (ratio, p)
 
 
-def test_cornell_box_smoke(reference_scenes):
-    cfg = load_config(f"{reference_scenes}/cornell-box.json")
+def test_cornell_box_smoke(cornell_json):
+    cfg = load_config(cornell_json)
     cfg.settings.xres = cfg.settings.yres = 32
     cfg.settings.multisample = 8
     arrays, meta, _ = build_scene(cfg, build_bvh=False)

@@ -8,8 +8,8 @@ import json
 
 import numpy as np
 
-from rgk_tpu.driver.render import RenderDriver
-from rgk_tpu.scene.config import build_scene, load_config
+from rgk.driver.render import RenderDriver
+from rgk.scene.config import build_scene, load_config
 
 
 def _cfg(tmp_path, rounds):

@@ -4,7 +4,7 @@ import os
 import numpy as np
 import pytest
 
-from rgk_tpu.scene.config import ConfigError, build_scene, load_config
+from rgk.scene.config import ConfigError, build_scene, load_config
 
 OBJ = """
 mtllib box.mtl
@@ -130,8 +130,9 @@ def test_rtc_bad_brdf(rtc_dir, tmp_path):
 def test_rtc_json_content_dispatch():
     # The reference repo's sponza.rtc is stale JSON — must dispatch to
     # the JSON parser (and then fail on its own terms, not as RTC).
-    path = "/root/reference/scenes/sponza.rtc"
-    if not os.path.exists(path):
+    from conftest import REFERENCE_SCENES
+    path = os.path.join(REFERENCE_SCENES, "sponza.rtc")
+    if not REFERENCE_SCENES or not os.path.exists(path):
         pytest.skip("reference sponza.rtc not present")
     try:
         cfg = load_config(path)

@@ -8,9 +8,12 @@ import os
 
 import pytest
 
-from rgk_tpu.scene.config import ConfigError, build_scene, load_config
+from rgk.scene.config import ConfigError, build_scene, load_config
 
-SCENES = sorted(glob.glob("/root/reference/scenes/*.json"))
+from conftest import REFERENCE_SCENES
+
+SCENES = (sorted(glob.glob(os.path.join(REFERENCE_SCENES, "*.json")))
+          if REFERENCE_SCENES else [])
 
 # Scene files that are broken in the reference repo itself; the
 # reference's own loader throws on them too:
@@ -42,11 +45,13 @@ def test_corpus_scene(path):
     cfg.post_check()
 
 
-def test_corpus_coverage():
+def test_corpus_coverage(reference_scenes):
     # A meaningful slice of the corpus must fully build (guards
     # against silently skipping everything via the except paths).
+    # Skips, through the fixture, when the corpus is absent.
     built = 0
-    for path in SCENES:
+    for path in sorted(glob.glob(os.path.join(reference_scenes,
+                                              "*.json"))):
         try:
             cfg = load_config(path)
             cfg.get_camera()
@@ -64,8 +69,8 @@ def test_corpus_coverage():
 def test_make_bigscene_builds_and_commits(tmp_path):
     """The procedural big-scene generator (tools/make_bigscene.py, the
     sponza stand-in for the flagship benchmark) must keep producing a
-    scene that parses and commits through the BVH/cluster path — the
-    bench's ground-truth pipeline must not rot silently."""
+    scene that parses and commits through the BVH path — the bench's
+    ground-truth pipeline must not rot silently."""
     import subprocess
     import sys
 
@@ -79,11 +84,3 @@ def test_make_bigscene_builds_and_commits(tmp_path):
     arrays, meta, _ = build_scene(cfg, build_bvh=True)
     assert meta.n_triangles > 3000
     assert meta.has_bvh
-    # The cluster structure the TPU kernel consumes is present and
-    # self-consistent (octant link tables cover every node).
-    import numpy as np
-    n_nodes = np.asarray(arrays.clusters.boxes_q).shape[0] // 3
-    ns = -(-(-(-n_nodes // 128)) // 8) * 8
-    assert np.asarray(arrays.clusters.links).shape == (8 * ns, 128)
-    assert np.asarray(arrays.clusters.leaf_bits).shape == \
-        (-(-n_nodes // 32),)

@@ -15,10 +15,12 @@ import os
 import numpy as np
 import pytest
 
-from rgk_tpu.driver.render import RenderDriver
-from rgk_tpu.scene.config import build_scene, load_config
+from rgk.driver.render import RenderDriver
+from rgk.scene.config import build_scene, load_config
 
-CUBE3B = "/root/reference/scenes/cube3-b.json"
+from conftest import REFERENCE_SCENES
+
+CUBE3B = os.path.join(REFERENCE_SCENES, "cube3-b.json")
 
 
 def _render(cfg, rounds=1):

@@ -12,8 +12,8 @@ import json
 import numpy as np
 import pytest
 
-from rgk_tpu.integrator.path import render_image_round
-from rgk_tpu.scene.config import build_scene, load_config
+from rgk.integrator.path import render_image_round
+from rgk.scene.config import build_scene, load_config
 
 
 def _cfg(thinglass):
@@ -81,7 +81,7 @@ def test_thinglass_hit_list_collection(tmp_path):
     orientation follow ApplyThinglass (path_tracer.cpp:81-108)."""
     import jax.numpy as jnp
 
-    from rgk_tpu.ops.thinglass import apply_thinglass, collect_thinglass
+    from rgk.ops.thinglass import apply_thinglass, collect_thinglass
 
     cfg = _cfg(["glass"])
     # Three stacked panes at y = 1, 1.5, 2 (two extra glass panes).
@@ -93,7 +93,7 @@ def test_thinglass_hit_list_collection(tmp_path):
                          "material": "pane_glass"})
     p = tmp_path / "panes.json"
     p.write_text(json.dumps(cfg))
-    from rgk_tpu.scene.config import build_scene, load_config
+    from rgk.scene.config import build_scene, load_config
     arrays, meta, _ = build_scene(load_config(str(p)), build_bvh=False)
     assert meta.has_thinglass
     assert int(arrays.glass_ids.shape[0]) == 6  # 3 panes x 2 tris

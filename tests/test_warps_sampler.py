@@ -1,9 +1,9 @@
 import jax.numpy as jnp
 import numpy as np
 
-from rgk_tpu.ops import sampler as smp
-from rgk_tpu.ops import vecmath as vm
-from rgk_tpu.ops import warps
+from rgk.ops import sampler as smp
+from rgk.ops import vecmath as vm
+from rgk.ops import warps
 
 
 def _uniform_grid(n):

@@ -1,7 +1,7 @@
 """The shared bidirectional benchmark scene (reference box2-class).
 
 One JSON dict consumed by BOTH sides of the comparison: bench.py
-renders it through the TPU queued-BDPT tracer, and
+renders it through the queued-BDPT tracer, and
 tools/measure_baseline.py feeds the identical dict to the locally
 compiled reference renderer (RGKrt) for the baseline number.
 

@@ -7,7 +7,7 @@ Beckmann as generated C++ arrays (reference src/LTC/ltc_ggx.cpp,
 ltc_beckmann.cpp: `tabM[4096]` of column-major 3x3 doubles and
 `tabAmplitude[4096]` floats, indexed [alpha + theta*64]).  These are
 *data*, not code — the same role as the scene meshes — and are packed
-here into rgk_tpu/data/ltc_tables.npz with shape [64, 64, 3, 3]
+here into rgk/data/ltc_tables.npz with shape [64, 64, 3, 3]
 (theta, alpha) in standard row-major math convention (M @ v == the
 reference's glm M * v).
 
@@ -66,7 +66,7 @@ def parse_tables(path: str):
 def main():
     ref = sys.argv[1] if len(sys.argv) > 1 else "/root/reference"
     out = sys.argv[2] if len(sys.argv) > 2 else os.path.join(
-        os.path.dirname(__file__), "..", "rgk_tpu", "data", "ltc_tables.npz")
+        os.path.dirname(__file__), "..", "rgk", "data", "ltc_tables.npz")
     os.makedirs(os.path.dirname(out), exist_ok=True)
 
     ggx_m, ggx_a = parse_tables(os.path.join(ref, "src/LTC/ltc_ggx.cpp"))

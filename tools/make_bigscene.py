@@ -10,11 +10,11 @@ atrium with two rows of fluted columns on a rippled stone floor,
 three LTC-GGX spheres down the aisle, lit by a point sun + sky.
 
 Emits reference-compatible assets so the SAME scene runs through both
-renderers (measured CPU baseline vs TPU):
+renderers (the reference's measured CPU baseline and this one):
   <dir>/ground.obj, columns.obj, spheres.obj   (v//vn, fan faces)
   <dir>/colonnade.json                         (forced per-file material)
 
-Usage: python tools/make_bigscene.py [--dir /tmp/bigscene] [--tris 1000000]
+Usage: python tools/make_bigscene.py [--dir .scenes/bigscene] [--tris 1000000]
 Prints the JSON config path; deterministic for a given --tris.
 """
 
@@ -245,7 +245,9 @@ def generate(outdir: str, n_tris: int = 1_100_000) -> str:
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--dir", default="/tmp/bigscene")
+    ap.add_argument("--dir", default=os.path.join(
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+        ".scenes", "bigscene"))
     ap.add_argument("--tris", type=int, default=1_100_000)
     args = ap.parse_args()
     generate(args.dir, args.tris)

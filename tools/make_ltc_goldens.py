@@ -10,7 +10,7 @@ stores both the inputs and the reference outputs under tests/goldens/:
     tests/goldens/ltc_inputs.npy   f32 [N, 11]
     tests/goldens/ltc_ref.npy      f32 [N, 4] = (pdf, sample.xyz)
 
-tests/test_ltc_parity.py asserts rgk_tpu/ops/ltc.py matches.
+tests/test_ltc_parity.py asserts rgk/ops/ltc.py matches.
 
 Usage: python tools/make_ltc_goldens.py
 """

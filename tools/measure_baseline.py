@@ -6,7 +6,7 @@ reduced-size variants of the benchmark scenes and records its OWN
 self-reported throughput ("Average rays per second",
 reference src/render_driver.cpp:136-137 — path-extension rays only,
 path_tracer.cpp:126) into tools/baseline_measured.json, which
-bench.py and BASELINE.md consume.
+bench.py consumes.
 
 Scenes:
   cornell-box  — the flagship analytic config (scenes/cornell-box.json)
@@ -102,7 +102,7 @@ def bench_colonnade(tris: int) -> dict:
 def bench_bdpt() -> dict:
     """Bidirectional regime: the shared box2-class scene
     (tools/bdpt_scene.py) with reverse=4 — identical JSON goes to
-    RGKrt here and to the TPU queued-BDPT tracer in bench.py."""
+    RGKrt here and to the queued-BDPT tracer in bench.py."""
     from bdpt_scene import scene_dict
 
     d = "/tmp/bdpt_baseline"

@@ -42,9 +42,9 @@ RGKRT = os.path.join(HERE, "refbuild", "build", "RGKrt")
 def render_ours(cfg, spp, mode_name, res, seed=7):
     import jax.numpy as jnp
 
-    from rgk_tpu.driver.render import RenderDriver
-    from rgk_tpu.ops.sampler import MODE_NAMES
-    from rgk_tpu.scene.config import build_scene
+    from rgk.driver.render import RenderDriver
+    from rgk.ops.sampler import MODE_NAMES
+    from rgk.scene.config import build_scene
 
     s = cfg.settings
     s.xres = s.yres = res
@@ -95,7 +95,7 @@ def main() -> int:
     ap.add_argument("--skip-reference", action="store_true")
     args = ap.parse_args()
 
-    from rgk_tpu.scene.config import load_config
+    from rgk.scene.config import load_config
     cfg = load_config("/root/reference/scenes/cornell-box.json")
 
     results = {}

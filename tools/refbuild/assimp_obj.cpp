@@ -1,5 +1,5 @@
 // OBJ/MTL loader behind the mini-assimp shim (tools/refbuild).
-// Mirrors rgk_tpu/io/obj.py so reference goldens and the TPU framework
+// Mirrors rgk/io/obj.py so reference goldens and this renderer
 // agree on geometry: fan triangulation, per-usemtl mesh split,
 // (v,vt,vn)-triple unification, area-weighted smooth normals or
 // faceted normals, Lengyel UV tangents.
@@ -176,7 +176,7 @@ void parse_mtl(const std::string& path,
             ls >> cur->opacity;
         } else if (key == "map_Kd" || key == "map_Ks" || key == "map_bump" ||
                    key == "map_Bump" || key == "bump") {
-            // rgk_tpu/io/obj.py takes the last token (skips -options)
+            // rgk/io/obj.py takes the last token (skips -options)
             std::string tok, last;
             while (ls >> tok) last = tok;
             if (key == "map_Kd") cur->diffuse_tex = last;

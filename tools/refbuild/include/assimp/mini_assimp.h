@@ -3,8 +3,8 @@
 // bxdf.cpp LoadFromAiMaterial).  Hand-written for this repo
 // (tools/refbuild); NOT the real assimp.
 //
-// Semantics deliberately mirror rgk_tpu/io/obj.py so golden images from
-// the reference build and renders from the TPU framework see the same
+// Semantics deliberately mirror rgk/io/obj.py so golden images from
+// the reference build and renders from this renderer see the same
 // geometry: fan triangulation, (v,vt,vn)-triple vertex unification,
 // per-usemtl mesh split, area-weighted smooth / faceted normals,
 // Lengyel UV tangents, raw MTL Ns stored as shininess*4 is NOT applied

@@ -1,6 +1,6 @@
 // ltc_dump: evaluate the REFERENCE renderer's LTC runtime
 // (reference src/LTC/ltc.cpp GetPDF:59-87 / GetRandom:113-143) on a
-// grid of inputs, for numerical parity tests of rgk_tpu/ops/ltc.py.
+// grid of inputs, for numerical parity tests of rgk/ops/ltc.py.
 //
 // Links against the reference objects compiled by build.sh
 // (src_LTC_ltc.cpp.o + the generated tables + glm shim).
